@@ -1,4 +1,4 @@
-"""cpu_path_tracing_tpu — a TPU-native differentiable path tracer.
+"""cpu_path_tracing_tpu — a differentiable path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 CPU path tracer ``AlexandruIca/cpu-path-tracing`` (smallpt-derived, C++17,

@@ -1,6 +1,6 @@
 """Render configuration.
 
-TPU-native replacement for the reference's compile-time constants and its
+Replacement for the reference's compile-time constants and its
 single positional CLI argument (reference: ``src/main.cpp:199-206`` hardcodes
 1024x768, 2x2 subpixels; ``src/constants.hpp:7-10`` pins epsilon/inf/depth
 limit; scene choice is a compile-time ``#include`` swap at
@@ -51,12 +51,12 @@ class RenderConfig:
     # factor, which is what lets the BASELINE inverse config (box_scene
     # 400x400@64spp, max_depth 100) fit on one chip.  Only affects loop='scan'.
     remat: bool = False
-    # 'auto' = pallas megakernel on TPU / XLA wavefront elsewhere;
+    # 'auto' = render.resolve_integrator decides (the fused GPU kernel on the
+    # gpu backend for f32 scenes, the XLA wavefront elsewhere);
     # 'wavefront' = persistent integrator with ray regeneration, XLA loop
-    # body (ops/wavefront.py); 'pallas' = same design with the fused Pallas
-    # megakernel loop body (ops/pallas/megakernel.py, f32 only; ~3x the XLA
-    # wavefront on a v5e chip — r1 measurement 618 vs ~200 Mrays/s, r3
-    # headline 951 on disco); 'batch' = one launch per sample batch
+    # body (ops/wavefront.py); 'pallas' = the whole render in one fused
+    # Pallas kernel for NVIDIA GPUs (ops/pallas/gpu_kernel.py, f32 and
+    # uniform jitter only); 'batch' = one launch per sample batch
     # (required for reverse-mode gradients, i.e. loop='scan').
     integrator: str = "auto"
     # Lane-pool width for the wavefront integrator.
@@ -74,27 +74,11 @@ class RenderConfig:
     checkpoint_every: int = 0
     # Subpixel jitter filter: 'uniform' (the reference binary's
     # src/main.cpp:186-190) or 'tent' (the vendored sandbox smallpt's
-    # tent filter, sandbox/main.cpp:253-256 — used by the REFMATCH.md
-    # exact-estimator race).  'tent' is implemented on the XLA integrators
-    # only; integrator='auto' resolves away from the pallas kernel for it.
+    # tent filter, sandbox/main.cpp:253-256 — used by the exact-estimator
+    # race of scripts/refmatch.py).  'tent' is implemented on the XLA
+    # integrators only; integrator='auto' resolves away from the fused
+    # kernel for it.
     jitter: str = "uniform"
-    # Pallas integrator mode: True = persistent megakernel (the whole
-    # wavefront loop inside ONE pallas_call, lane pool resident in VMEM —
-    # ~1.5x the per-step path on v5e and the production default; see
-    # ops/pallas/megakernel.py make_persistent_kernel and PERF.md);
-    # False = per-step kernel with the loop carried by XLA.
-    pallas_persistent: bool = True
-    # Persistent-kernel lane-pool height in sublane rows (pool = rows x 128
-    # lanes).  Small pools maximize generation count and minimize the drain
-    # tail; 32 rows (4096 lanes) measured best on v5e across scenes.
-    pallas_rows: int = 32
-    # Persistent-kernel loop unroll: bounce steps per while-loop iteration
-    # (1 or even).  >1 keeps lane state in registers across the sub-steps
-    # and amortizes the loop's fixed scalar cost; the watermark/flush
-    # schedule (every 2nd bounce) is preserved exactly, so results are
-    # BITWISE identical across settings.  2 measured +8% on the disco
-    # headline (1868 -> 2016 Mrays/s, v5e; 4 is flat vs 2 — PERF.md §7).
-    pallas_unroll: int = 2
     # Live-lane compaction schedule for the reverse-differentiable scan
     # (loop='scan' + integrator='batch' only): tuple of (n_steps,
     # capacity_fraction) stages covering max_depth, or None for the plain

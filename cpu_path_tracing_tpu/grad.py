@@ -1,6 +1,6 @@
 """Differentiable rendering and inverse rendering.
 
-The reference has no analog — this is the capability the TPU build adds on
+The reference has no analog — this is the capability this build adds on
 top of reproducing it (BASELINE.json north star: pixel gradients w.r.t.
 sphere centers/radii, albedos and camera parameters through the
 re-parameterized bounce loop; inverse rendering on box_scene).
@@ -77,8 +77,8 @@ def tune_backward_schedule(scene: Scene, cfg: RenderConfig, *, group: int = 4,
                            margin: float = 1.5, min_frac: float = 1.0 / 64,
                            probe_cells: int = 1 << 14):
     """Build a live-lane compaction schedule for the backward scan from a
-    pilot survival-curve measurement (the adaptive-depth backward, VERDICT
-    r4 #1; ops/integrator.radiance_compact).
+    pilot survival-curve measurement (the adaptive-depth backward;
+    ops/integrator.radiance_compact).
 
     One cheap 1-sample scan over a strided ~``probe_cells`` cell subset
     yields the live-lane count per bounce depth; stage capacities are
@@ -86,7 +86,7 @@ def tune_backward_schedule(scene: Scene, cfg: RenderConfig, *, group: int = 4,
     ``min_frac`` against probe noise and parameter drift during
     optimization).  A new stage opens only when the capacity would shrink to
     <=``shrink`` of the previous one: each boundary costs two XLA scatters
-    (~ms-scale on TPU, ops/integrator.radiance_compact), so only >=3x drops
+    (ops/integrator.radiance_compact), so only >=3x drops
     pay for themselves — box tunes to ~3 boundaries capturing ~80% of the
     dead-lane savings.  Scenes whose paths do not die (specular boxes:
     survival ~1 per bounce) tune to a single full-width stage and return
@@ -195,8 +195,8 @@ def make_diff_render(scene: Scene, cfg: RenderConfig, sample_chunk: Optional[int
     The production inverse-rendering estimator (BASELINE.json north star:
     "forward + backward intersection/shading kernels at speed-of-light"):
 
-    * **forward** runs the fast early-exit path — the persistent wavefront /
-      Pallas megakernel (``cfg.integrator``, loop='while') — because the
+    * **forward** runs the fast early-exit path — the XLA wavefront or the
+      fused GPU kernel (``cfg.integrator``, loop='while') — because the
       primal value never needs a tape;
     * **backward** exploits that the rendered mean is a sum of independent
       per-sample estimates, so the VJP is accumulated over ``sample_chunk``-
@@ -208,10 +208,10 @@ def make_diff_render(scene: Scene, cfg: RenderConfig, sample_chunk: Optional[int
     Both sides evaluate the identical estimator; on CPU / XLA integrators the
     wavefront and batch paths are bitwise-equal by test, so the returned
     gradients match end-to-end ``jax.grad`` of the scan path exactly.  With
-    ``integrator='auto'/'pallas'`` on TPU, the primal (hence the loss
-    cotangent fed to the VJP) matches the batch path only statistically at
-    full depth — Mosaic/XLA fp-contraction differences decorrelate a tiny
-    fraction of samples (see ops/pallas/megakernel.py), well below MC noise.
+    the fused kernel on the GPU, the primal (hence the loss cotangent fed to
+    the VJP) matches the batch path only statistically at full depth —
+    Triton/XLA fp-contraction differences decorrelate a small fraction of
+    samples (see ops/pallas/gpu_kernel.py), well below MC noise.
 
     Returns ``render_mean(params, cell_ids) -> [B,3]`` (jit-compatible,
     reverse-differentiable w.r.t. ``params``).  ``cell_ids`` must be a
@@ -259,17 +259,12 @@ def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int,
         if replay and set(params) <= set(OPTIMIZABLE_REPLAY):
             # Analytic wavefront replay: the whole sample span in ONE
             # regenerating early-exit pass — no tape, no transpose, no fixed
-            # trip count, O(lanes) memory (ops/replay.py; measured round 5:
-            # scan VJP 74 ms/sample at production shape vs ~4 ms replay,
-            # PERF.md §8).  sample_chunk is irrelevant here (no activation
-            # memory to bound).  On TPU the eligibility-gated dispatch runs
-            # the whole replay inside one Pallas kernel
-            # (ops/pallas/replay_kernel.py — the backward twin of the
-            # forward persistent megakernel).
-            from .ops.replay import replay_param_grads_auto
+            # trip count, O(lanes) memory (ops/replay.py).  sample_chunk is
+            # irrelevant here (no activation memory to bound).
+            from .ops.replay import replay_param_grads_wavefront
 
             sc = merge_params(scene, params)
-            g = replay_param_grads_auto(
+            g = replay_param_grads_wavefront(
                 sc, bwd_cfg, cell_ids, sample_start, spp_span, ct)
             g = {k: g[k].astype(params[k].dtype) for k in params}
             return (
@@ -283,8 +278,7 @@ def make_diff_render_span(scene: Scene, cfg: RenderConfig, spp_span: int,
                 # Contracted form: grad of sum(render * ct) — mathematically
                 # the identical VJP (linearity), but the compacted integrator
                 # can then retire lanes by GATHERING ct rows instead of
-                # scatter-adding an output image (ops/integrator docstring;
-                # XLA scatters cost ~ms each at this size on TPU).
+                # scatter-adding an output image (ops/integrator docstring).
                 def floss(p):
                     return _contracted_render_sum(
                         merge_params(scene, p), bwd_cfg, cell_ids, s0, chunk, ct)
@@ -390,7 +384,7 @@ def make_sharded_accum_train_step(mesh, scene: Scene, cfg: RenderConfig, optimiz
                                   cell_chunk: Optional[int] = None,
                                   sample_chunk: Optional[int] = None,
                                   compact: bool = True, replay: bool = True):
-    """Mesh-parallel inverse rendering at production scale (VERDICT r2 #5):
+    """Mesh-parallel inverse rendering at production scale:
     the composition of ``make_accum_train_step``'s memory machinery (host
     loop over cell chunks; sample-chunked rematerialized backward) with the
     SURVEY §5.8 collective layout (cells sharded over 'tiles', sample range
@@ -442,7 +436,7 @@ def make_sharded_accum_train_step(mesh, scene: Scene, cfg: RenderConfig, optimiz
         # Sum of squared errors decomposes over tile shards.
         sq = jax.lax.psum(sq, TILE_AXIS)
         if not vma:
-            # Without vma tracking (pallas path) the per-shard grads are
+            # Without vma tracking (fused kernel or replay) the per-shard grads are
             # partials: sum over tiles; every sample shard saw the full
             # sample psum, so pmean (not psum) there.
             grads = jax.lax.psum(grads, TILE_AXIS)
@@ -450,17 +444,17 @@ def make_sharded_accum_train_step(mesh, scene: Scene, cfg: RenderConfig, optimiz
         # With vma tracking, AD's transpose of the params pbroadcast already
         # psum'd the grads over BOTH mesh axes (each sample shard contributes
         # its own sample range through the cells psum) — adding collectives
-        # here would double-count (verified: /tmp probe, VERDICT r2 weak #6).
+        # here would double-count (tests/test_parallel.py pins the scale).
         return sq, grads
 
     # vma checking stays on unless (a) the fast forward resolves to the
-    # pallas megakernel (whose outputs carry no vma metadata), or (b) the
+    # fused GPU kernel (pallas_call outputs carry no vma metadata), or (b) the
     # replay backward is active: its custom-vjp gradients are computed
     # outside AD, so the vma checker cannot see the replication the
     # pbroadcast transpose would otherwise provide — use the same
     # explicit-collectives path (psum tiles + pmean samples; the pmean
     # because the no-vma psum transpose scales the cotangent by n_samples,
-    # the round-2-verified pallas-branch semantics).
+    # the explicit-collectives semantics the mesh tests pin).
     vma = resolve_integrator(scene, cfg) != "pallas" and not replay
     sharded_chunk = jax.jit(jax.shard_map(
         shard_fn,

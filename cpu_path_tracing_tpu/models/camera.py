@@ -1,4 +1,4 @@
-"""Thin-lens camera, TPU-native.
+"""Thin-lens camera, batched.
 
 Reproduces the reference camera exactly (``src/camera.cpp:3-38``), including
 its two documented quirks (SURVEY.md fidelity list #3/#4):
@@ -8,7 +8,7 @@ its two documented quirks (SURVEY.md fidelity list #3/#4):
   (``src/camera.cpp:34-35``);
 * primary ray directions are **not** normalized (``src/camera.cpp:36-37``).
 
-Differences that are deliberate TPU-first redesigns:
+Differences that are deliberate batched-accelerator redesigns:
 
 * the rejection-sampling unit-disk loop (``src/camera.cpp:19-30``) becomes the
   closed-form polar map ``(r, theta) = (sqrt(u1), 2*pi*u2)`` — identical
@@ -152,7 +152,7 @@ def get_rays(cam: Camera, s, t, u_disk1, u_disk2):
     """
     # Polar-map unit-disk sample (replaces the rejection loop at
     # src/camera.cpp:19-30; same uniform-on-disk distribution).  Product
-    # order matches the megakernel: (sqrt(u)*lens_r)*cos — see
+    # order matches the fused GPU kernel: (sqrt(u)*lens_r)*cos — see
     # ops/intersect.py on why expression structure is load-bearing.
     r = jnp.sqrt(u_disk1) * cam.lens_radius
     theta = (2.0 * jnp.pi) * u_disk2

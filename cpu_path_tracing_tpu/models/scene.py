@@ -1,6 +1,6 @@
 """Scene representation: structure-of-arrays sphere list + camera.
 
-TPU-native replacement for ``pt::scene`` (``src/scene.hpp:12-16``) — instead of
+Replacement for ``pt::scene`` (``src/scene.hpp:12-16``) — instead of
 an array-of-structs ``std::vector<sphere>`` the scene is a pytree of arrays,
 the differentiable parameter set of the renderer.
 
@@ -78,9 +78,9 @@ class Scene:
     # Dielectric refraction index — a STATIC (meta) field: it reaches every
     # integrator as a trace-time constant, so the default 2.0 (the
     # ``src/main.cpp:71`` quirk) compiles to the identical program as before
-    # the field existed, preserving the XLA<->Mosaic bitwise-parity pins.
+    # the field existed, preserving the pinned renders.
     # The vendored sandbox smallpt uses 1.5 (``sandbox/main.cpp:204``) — see
-    # the ``smallpt_exact`` scene / REFMATCH.md.
+    # the ``smallpt_exact`` scene / scripts/refmatch.py.
     ior: float = 2.0
 
     @property

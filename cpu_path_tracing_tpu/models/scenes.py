@@ -175,7 +175,7 @@ def smallpt_scene(width: int, height: int, dtype=jnp.float32, ior: float = 2.0) 
 def smallpt_exact_scene(width: int, height: int, dtype=jnp.float32) -> Scene:
     """``smallpt`` with the sandbox binary's actual refraction index 1.5
     (``sandbox/main.cpp:204``) instead of the src/ tree's 2.0 quirk — the
-    scene half of the REFMATCH.md exact-estimator race (pair it with
+    scene half of the scripts/refmatch.py exact-estimator race (pair it with
     ``RenderConfig(jitter='tent')`` for the sandbox's tent filter)."""
     return smallpt_scene(width, height, dtype=dtype, ior=1.5)
 
@@ -233,9 +233,9 @@ def random_spheres_scene(width: int, height: int, dtype=jnp.float32,
 
     The reference never scales past 10 spheres and lists a BVH as unbuilt
     future work (``README.md:8``); this scene (104 spheres at the default
-    grid) exercises the TPU design's answer — the unrolled running-min
-    intersect in the megakernel and the broadcast [B,N] intersect in XLA —
-    and is the many-sphere benchmark scene.
+    grid) exercises the brute-force answer — the unrolled running-min
+    intersect in the fused GPU kernel and the broadcast [B,N] intersect in
+    XLA — and is the many-sphere benchmark scene.
     """
     rng = np.random.default_rng(seed)
     half = grid / 2.0
@@ -278,8 +278,8 @@ def random_spheres_scene(width: int, height: int, dtype=jnp.float32,
 @register_scene("random_spheres_512")
 def random_spheres_512_scene(width: int, height: int, dtype=jnp.float32) -> Scene:
     """~520-sphere scaling stress scene (grid=23): 65x the reference's
-    largest sphere count, the demonstration workload for the megakernel's
-    many-sphere intersect scaling (PERF.md).  Same construction as
+    largest sphere count, the demonstration workload for the fused kernel's
+    many-sphere intersect scaling.  Same construction as
     ``random_spheres``, denser grid."""
     return random_spheres_scene(width, height, dtype=dtype, grid=23)
 

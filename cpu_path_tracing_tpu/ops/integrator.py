@@ -1,6 +1,6 @@
 """Wavefront radiance integrator.
 
-TPU-native replacement for the reference's per-ray iterative bounce loop
+Replacement for the reference's per-ray iterative bounce loop
 (``radiance``, ``src/main.cpp:104-158``): a whole batch of rays advances one
 bounce per step of a ``lax.while_loop`` (fast forward path, early exit when
 every lane is dead) or a fixed-trip ``lax.scan`` (reverse-mode differentiable
@@ -83,10 +83,9 @@ def bounce_step(scene: Scene, state: RayState, uniforms, depth, *, rr_depth, eps
                 with_aux: bool = False) -> RayState:
     """Advance every live ray one bounce.  ``uniforms``: [B,4] (see ops/rng.py).
 
-    Expression structure mirrors the Pallas megakernel chain-for-chain (see
-    ops/intersect.py docstring: identical structure compiles
-    bitwise-identically under XLA and Mosaic — the on-device parity gate
-    depends on it).
+    Expression structure mirrors the fused GPU kernel chain-for-chain (see
+    ops/intersect.py docstring: identical structure is what keeps the two
+    bitwise equal in interpret mode and close on the card).
 
     ``with_aux`` additionally returns the per-lane bounce internals the
     replay backward needs (ops/replay.py): hit flags/ids, the pre-bounce
@@ -105,12 +104,12 @@ def bounce_step(scene: Scene, state: RayState, uniforms, depth, *, rr_depth, eps
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     a_quad = dx * dx + dy * dy + dz * dz
     dinv = _rsqrt_safe(a_quad)
-    # Fusion-invariant form: see the megakernel's sky block.
+    # Fusion-invariant form: see the fused kernel's sky block.
     sky_t = (dy * dinv) * 0.5 + 0.5
     bg = scene.background.astype(dt)
     # Lerp form (one product): the two-product (1-t)*bg0 + t*bg1 blend has
-    # an ambiguous fma grouping that XLA and Mosaic resolved differently —
-    # see the megakernel's sky block.
+    # an ambiguous fma grouping that two compilers may resolve differently —
+    # see the fused kernel's sky block.
     sky = bg[0] + sky_t[:, None] * (bg[1] - bg[0])
     die_miss = alive & ~hit
     result = jnp.where(die_miss[:, None], emit + thr * sky, result)
@@ -166,12 +165,12 @@ def radiance_compact(scene: Scene, origins, directions, keys, *, max_depth=100,
                      rr_depth=4, epsilon=1e-4, inf=1e20, schedule=None, remat=True,
                      ct=None):
     """Reverse-differentiable radiance with LIVE-LANE COMPACTION — the
-    adaptive-depth backward of VERDICT r4 #1.
+    adaptive-depth backward.
 
     The fixed-trip ``loop='scan'`` estimator runs every lane for all
     ``max_depth`` bounces even though the live-lane count collapses
     geometrically under Russian roulette (box @ 131072 lanes: 64% live at
-    depth 8, 6% at depth 24, 0.2% at depth 48 — measured round-5 probe).
+    depth 8, 6% at depth 24, 0.2% at depth 48 — counted by a pilot render).
     Here the depth range is split into *stages* with a static capacity
     ``schedule``: at each stage boundary, finished lanes retire their
     radiance and the surviving lanes are stream-compacted (cumsum positions
@@ -181,8 +180,8 @@ def radiance_compact(scene: Scene, origins, directions, keys, *, max_depth=100,
     the plain scan bitwise (up to +0/-0) and gradients match up to
     lane-summation order.
 
-    TPU cost shaping (measured round 5, PERF.md §8): XLA scatters/gathers at
-    this size cost ~1-3 ms EACH, so (a) the whole carry is packed into one
+    Cost shaping: an XLA scatter or gather at this size is a costly
+    operation of its own, so (a) the whole carry is packed into one
     float and one int matrix — TWO scatters per boundary regardless of field
     count; (b) in the gradient path (``ct`` given) retirement is contracted
     against the cotangent via a GATHER of ``ct`` rows (transpose-free: ct is

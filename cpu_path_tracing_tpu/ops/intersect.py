@@ -1,10 +1,10 @@
 """Batched ray-sphere intersection.
 
-TPU-native replacement for the reference's per-ray linear scan
+Replacement for the reference's per-ray linear scan
 (``intersect`` at ``src/main.cpp:30-42`` calling ``pt::sphere::intersect``,
 ``src/sphere.cpp:6-30``): one broadcast [B, N] quadratic solve plus a masked
 argmin.  N is tiny (5-10 spheres; the reference has no BVH, ``README.md:8``),
-so all-pairs is both exact and the fastest possible layout on the VPU.
+so all-pairs is exact and needs no acceleration structure.
 
 Numerics (differences from the reference, deliberate):
 
@@ -20,14 +20,13 @@ epsilon``, else the far root, else miss (``src/sphere.cpp:19-28``); ties across
 spheres keep the lowest index (``src/main.cpp:34-39`` strict ``d < t`` forward
 scan == first-occurrence argmin).
 
-TPU precision note: every contraction here carries
-``precision=Precision.HIGHEST``.  XLA-TPU lowers default-precision
-einsum/matmul onto the MXU in bfloat16 (8 mantissa bits) — catastrophic for
-the intersection quadratic and silently wrong for the property gather (1.92
--> bf16 rounding) — which made the XLA integrators diverge from the Pallas
-kernel and the CPU oracle on device (caught by scripts/tpu_smoke.py, round
-2).  HIGHEST forces full-f32 accumulation; the contractions are tiny (c=3,
-N<=~100), so the cost is negligible next to the elementwise quadratic.
+Precision note: every contraction here carries
+``precision=Precision.HIGHEST``.  An accelerator may run a default-precision
+float32 einsum/matmul at reduced precision (TF32 on a GPU: a 10-bit
+mantissa) — catastrophic for the intersection quadratic and silently wrong
+for the property gather (1.92 -> rounded).  HIGHEST forces full-f32
+accumulation; the contractions are tiny (c=3, N<=~100), so the cost is
+negligible next to the elementwise quadratic.
 """
 
 from __future__ import annotations
@@ -54,14 +53,15 @@ def intersect_scene(scene: Scene, origins, directions, epsilon=1e-4, inf=1e20):
 
     Expression structure note: every dot product is written as the explicit
     left-associated component chain ``x0*y0 + x1*y1 + x2*y2`` — the EXACT
-    expression the Pallas megakernel uses — rather than einsum.  Measured on
-    v5e: identical chains compile bitwise-identically under XLA and Mosaic,
-    while einsum's unspecified contraction order differed from the chain in
-    ~3.5% of t values at smallpt coordinate scale (ulp-level, but enough to
-    flip epsilon hit tests / RR lotteries and fail the on-device parity
-    gate's strict tier for big-coordinate scenes).  Bitwise XLA==Mosaic
-    agreement is a correctness feature (one estimator, one answer), so chain
-    structure is load-bearing here — do not "simplify" back to einsum/sum.
+    expression the fused GPU kernel uses — rather than einsum.  Identical
+    chains compile bitwise-identically under XLA and the Pallas interpreter,
+    while einsum's unspecified contraction order differs from the chain in a
+    few percent of t values at smallpt coordinate scale (ulp-level, but
+    enough to flip epsilon hit tests / RR lotteries and fail the on-card
+    gate's strict tier for big-coordinate scenes).  Agreement between the
+    integrators is a correctness feature (one estimator, one answer), so
+    chain structure is load-bearing here — do not "simplify" back to
+    einsum/sum.
     """
     p0 = scene.p0  # [N,3]
     r = scene.radius[None, :]  # [1,N]
@@ -89,9 +89,9 @@ def intersect_scene(scene: Scene, origins, directions, epsilon=1e-4, inf=1e20):
     qform = -(b + sign_b * sqrtd)
     qform_safe = jnp.where(qform != 0.0, qform, 1.0)
     # Reciprocal-multiply with the reciprocal HOISTED out of the per-sphere
-    # math: a depends only on the ray, and f32 divide costs ~8 fma slots on
-    # the v5e VPU (measured) — one divide per lane instead of one per
-    # (lane, sphere).  The megakernel hoists the identical chain (parity).
+    # math: a depends only on the ray, and an f32 divide costs several fma
+    # slots — one divide per lane instead of one per (lane, sphere).  The
+    # fused kernel hoists the identical chain (parity).
     a_inv = 1.0 / a
     root_1 = qform * a_inv
     root_2 = jnp.where(qform != 0.0, c / qform_safe, inf)
@@ -123,15 +123,16 @@ class SphereProps(NamedTuple):
 def sphere_props(scene: Scene, hit_id) -> SphereProps:
     """Gather all per-sphere data for a lane batch with ONE one-hot matmul.
 
-    TPU rationale: XLA lowers per-lane `table[hit_id]` gathers to slow
-    scatter/gather DMA (~measured 3+ ms per bounce at 512k lanes); a
-    [B,N] x [N,12] matmul over the tiny sphere table is pure vector/MXU work.
+    Rationale: the design's first target lowered per-lane `table[hit_id]`
+    gathers to slow DMA; a [B,N] x [N,12] matmul over the tiny sphere table
+    is pure vector/matrix work.  Whether a plain gather is cheaper on the
+    GPU is not measured yet.
     The material enum rides along as three one-hot f32 columns, which the
     shading blend consumes directly (no int compares).
 
     The gathered geometry is the CENTER only: the outward normal is the
     normalized (hit - center), so anchor/radius never need gathering —
-    10 tracked columns in the megakernel's running select instead of 16
+    10 tracked columns in the fused kernel's running select instead of 16
     (the select is ~30% of the per-sphere intersect cost).  The center is
     derived as ``p0 - radius*anchor_dir`` in the scene dtype with the
     identical chain on both sides; for the 1e6-radius walls its f32
@@ -154,8 +155,8 @@ def sphere_props(scene: Scene, hit_id) -> SphereProps:
         axis=1,
     )  # [N,12]
     onehot = (hit_id[:, None] == jnp.arange(n, dtype=hit_id.dtype)[None, :]).astype(dtype)
-    # HIGHEST: the default would run on the MXU in bf16 and round the gathered
-    # scene constants (see module docstring).
+    # HIGHEST: the default may run at reduced precision and round the
+    # gathered scene constants (see module docstring).
     props = jnp.matmul(onehot, table, precision=Precision.HIGHEST)  # [B,12]
     return SphereProps(
         center=props[:, 0:3],
@@ -178,7 +179,7 @@ def hit_record(scene: Scene, origins, directions, t, hit_id, props: "SphereProps
     c_h = props.center
 
     # Kernel-identical expression structure (see intersect_scene docstring):
-    # explicit component chains, rsqrt normalize — ops/pallas/megakernel.py
+    # explicit component chains, rsqrt normalize — ops/pallas/gpu_kernel.py
     # hit-record block.
     ox, oy, oz = origins[:, 0], origins[:, 1], origins[:, 2]
     dx, dy, dz = directions[:, 0], directions[:, 1], directions[:, 2]
@@ -205,5 +206,5 @@ def hit_record(scene: Scene, origins, directions, t, hit_id, props: "SphereProps
 
 
 def _rsqrt_safe(x):
-    """Gradient-safe rsqrt — identical guard structure to the megakernel's."""
+    """Gradient-safe rsqrt — identical guard structure to the fused kernel's."""
     return jax.lax.rsqrt(jnp.where(x > 0, x, 1.0))

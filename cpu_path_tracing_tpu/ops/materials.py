@@ -1,6 +1,6 @@
 """Material scattering, batched + branch-free.
 
-TPU-native replacement for the reference's ``switch``-dispatched per-ray
+Replacement for the reference's ``switch``-dispatched per-ray
 samplers (``diffuse_ray`` / ``specular_ray`` / ``dielectric_ray``,
 ``src/main.cpp:44-97,141-154``): all three directions are computed for every
 lane and blended by material id with one-hot mask products — the
@@ -13,11 +13,10 @@ lanes cannot poison gradients.
 Expression structure note (load-bearing, do not "simplify"): every dot
 product / norm is the explicit left-associated component chain and every
 division-by-computed-value is a reciprocal-multiply, EXACTLY matching the
-Pallas megakernel (ops/pallas/megakernel.py materials block).  Identical
-expression structure compiles bitwise-identically under XLA and Mosaic
-(measured on v5e), which is what lets the on-device parity gate demand
-near-bitwise agreement between the XLA and Pallas integrators — see
-ops/intersect.py for the measurement.
+fused GPU kernel (ops/pallas/gpu_kernel.py materials block).  Identical
+expression structure is what keeps the XLA integrators and the kernel
+bitwise equal in interpret mode and close on the card — see
+ops/intersect.py.
 """
 
 from __future__ import annotations

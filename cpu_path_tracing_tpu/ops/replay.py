@@ -8,10 +8,9 @@ MULTILINEARLY: with detached discrete decisions a path's radiance is
     f_j = albedo[h_j] * colf_j,   colf_j = 1/p_j on a surviving roulette.
 
 Reverse-mode AD of the bounce scan pays the full tape machinery (remat
-recompute + transpose, ~1.65x the primal per sample, at fixed trip count —
-measured round 5, PERF.md §8) to differentiate what is analytically a
-log-derivative sum: since every bounce-k contribution c_k = thr_k * e_k
-depends only on its PREFIX,
+recompute + transpose, at fixed trip count) to differentiate what is
+analytically a log-derivative sum: since every bounce-k contribution
+c_k = thr_k * e_k depends only on its PREFIX,
 
     dL/d a[m,c']  = sum_k c_k[c] * ( cnt_k[m] * delta_cc' / a[m,c]
                                      - rr_k[m] * tiemask[m,c'] / p_m ),
@@ -26,6 +25,10 @@ count (an early-exit while loop).  The replay runs the IDENTICAL bounce
 math (ops/integrator.bounce_step with_aux), so decisions and prefixes match
 the primal bitwise and the gradients equal the scan VJP up to fp
 reassociation (tests/test_replay.py pins this against jax.grad in f64).
+
+Every contraction carries ``precision=HIGHEST``: a float32 einsum may run in
+TF32 on the GPU (a 10-bit mantissa), which would round each cotangent and
+accumulated gradient term.
 
 Scope/limitations (documented, enforced by grad.py's field gate):
 
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax.lax import Precision
 
 from ..config import RenderConfig
 from ..models.scene import Scene
@@ -50,38 +54,8 @@ from . import rng as rng_ops
 from .integrator import bounce_step, init_state
 
 
-def assemble_albedo_grad(albedo, cq, rr_w):
-    """Final albedo-gradient assembly from the two raw replay contractions:
-    ``cq[m,c] = sum_k cnt_k[m] * q_k[c]`` and ``rr_w[m] = sum_k cnt_rr_k[m]
-    * sum_c q_k[c]`` (module docstring identity).  The guarded 1/albedo,
-    1/p and jax-even tie-split forms are shared with the in-loop XLA
-    accumulation above; the Pallas replay kernel defers them to this final
-    step (constant factors — algebraically identical, fp order differs)."""
-    p = jnp.max(albedo, axis=-1)
-    ties = jnp.sum(albedo == p[:, None], axis=-1).astype(albedo.dtype)
-    tiemask = (albedo == p[:, None]).astype(albedo.dtype) / ties[:, None]
-    inv_albedo = jnp.where(albedo > 0, 1.0 / jnp.where(albedo > 0, albedo, 1.0), 0.0)
-    inv_p = jnp.where(p > 0, 1.0 / jnp.where(p > 0, p, 1.0), 0.0)
-    return cq * inv_albedo - (rr_w * inv_p)[:, None] * tiemask
-
-
-def replay_param_grads_auto(scene: Scene, cfg: RenderConfig, cell_ids,
-                            sample_start, num_samples: int, ct):
-    """Backend-dispatched replay backward: the Pallas replay megakernel on
-    TPU when eligible (f32 scene, uniform jitter, N <= MAX_REPLAY_SPHERES —
-    ops/pallas/replay_kernel.py), else the XLA wavefront replay.  Both
-    compute the identical analytic gradients (same decisions, same uniforms)
-    up to fp summation order."""
-    from .pallas.replay_kernel import MAX_REPLAY_SPHERES, replay_param_grads_pallas
-
-    if (jax.default_backend() == "tpu"
-            and scene.p0.dtype == jnp.float32
-            and cfg.jitter == "uniform"
-            and scene.num_spheres <= MAX_REPLAY_SPHERES):
-        return replay_param_grads_pallas(
-            scene, cfg, cell_ids, sample_start, num_samples, ct)
-    return replay_param_grads_wavefront(
-        scene, cfg, cell_ids, sample_start, num_samples, ct)
+def _einsum(spec, *operands):
+    return jnp.einsum(spec, *operands, precision=Precision.HIGHEST)
 
 
 def replay_param_grads(scene: Scene, cfg: RenderConfig, cell_ids,
@@ -132,7 +106,7 @@ def replay_param_grads(scene: Scene, cfg: RenderConfig, cell_ids,
             thr_ct = ctd * aux["thr_pre"]  # [B,3]
 
             # emission: dL/de[m,c] = sum over hits of thr_pre
-            ge = ge + jnp.einsum("ln,lc->nc", onehot, thr_ct)
+            ge = ge + _einsum("ln,lc->nc", onehot, thr_ct)
 
             # this bounce's contributions, ct-weighted (hit emission pickup
             # + sky on a miss — disjoint events)
@@ -140,16 +114,16 @@ def replay_param_grads(scene: Scene, cfg: RenderConfig, cell_ids,
             q = q + jnp.where(aux["die_miss"][:, None], thr_ct * aux["sky"], 0.0)
 
             # albedo prefix terms via the two counters
-            ga = ga + jnp.einsum("ln,lc->nc", cnt, q) * inv_albedo
+            ga = ga + _einsum("ln,lc->nc", cnt, q) * inv_albedo
             s = jnp.sum(q, axis=-1)  # [B]
-            rr_w = jnp.einsum("ln,l->n", cnt_rr, s)  # [N]
+            rr_w = _einsum("ln,l->n", cnt_rr, s)  # [N]
             ga = ga - (rr_w * inv_p)[:, None] * tiemask
 
             # background: sky = bg0 + t*(bg1-bg0)
             mt = jnp.where(aux["die_miss"], aux["sky_t"], 0.0)
             m1 = jnp.where(aux["die_miss"], 1.0 - aux["sky_t"], 0.0)
-            gbg = gbg.at[0].add(jnp.einsum("l,lc->c", m1, thr_ct))
-            gbg = gbg.at[1].add(jnp.einsum("l,lc->c", mt, thr_ct))
+            gbg = gbg.at[0].add(_einsum("l,lc->c", m1, thr_ct))
+            gbg = gbg.at[1].add(_einsum("l,lc->c", mt, thr_ct))
 
             # counters AFTER accumulation: f_k multiplies continuing lanes
             inc = onehot * aux["cont"][:, None].astype(dt)
@@ -179,19 +153,16 @@ def replay_param_grads_wavefront(scene: Scene, cfg: RenderConfig, cell_ids,
     """Wavefront form of :func:`replay_param_grads` — the production
     backward (grad.make_diff_render_span).
 
-    The batch replay still pays the XLA loop's ~0.4 ms/iteration floor for
-    max-live-depth iterations PER SAMPLE (box @ 131072 lanes: ~99
-    iterations each, 6 lanes still alive at depth 99 — measured round 5).
-    Here dead lanes REGENERATE onto fresh items exactly like the forward
-    wavefront (ops/wavefront.py), so the whole (cells x samples) item range
-    retires in ~segments/(lanes x occupancy) iterations — ~25x fewer
-    loop-floor payments at production shape.
+    The batch replay pays the XLA loop's fixed per-iteration cost for
+    max-live-depth iterations PER SAMPLE (a few lanes of box survive to
+    depth ~99).  Here dead lanes REGENERATE onto fresh items exactly like
+    the forward wavefront (ops/wavefront.py), so the whole (cells x samples)
+    item range retires in ~segments/(lanes x occupancy) iterations.
 
-    Per-lane cotangents without gathers: a dynamic gather of ct rows per
-    iteration costs ~ms at this width on TPU, so the cotangent table rides
-    a K-slot RING of contiguous generation slabs (ct_items[g*B:(g+1)*B] —
-    one dynamic_slice per flush, like the forward's result ring in
-    reverse): a regenerating lane picks its row from the ring by a K-way
+    Per-lane cotangents without a per-iteration gather: the cotangent table
+    rides a K-slot RING of contiguous generation slabs
+    (ct_items[g*B:(g+1)*B] — one dynamic_slice per flush, like the forward's
+    result ring in reverse): a regenerating lane picks its row from the ring by a K-way
     one-hot select, and the ring admits generation g_flush+K when the
     watermark advances.  The wavefront invariant g in [g_flush, g_flush+K)
     guarantees the slab is resident.
@@ -264,7 +235,7 @@ def replay_param_grads_wavefront(scene: Scene, cfg: RenderConfig, cell_ids,
 
         # K-way one-hot select of the lane's generation slab (no gather).
         slot_oh = (want_g[:, None] % K == ring_ids[None, :]).astype(dt)
-        ct_sel = jnp.einsum("bk,kbc->bc", slot_oh, ct_ring)
+        ct_sel = _einsum("bk,kbc->bc", slot_oh, ct_ring)
 
         tm = real[:, None]
         ray = st.ray._replace(
@@ -305,16 +276,16 @@ def replay_param_grads_wavefront(scene: Scene, cfg: RenderConfig, cell_ids,
         onehot = ((aux["hid"][:, None] == sphere_ids[None, :])
                   & aux["was_alive"][:, None] & aux["hit"][:, None]).astype(dt)
         thr_ct = ct_lane * aux["thr_pre"]
-        ge = ge + jnp.einsum("ln,lc->nc", onehot, thr_ct)
+        ge = ge + _einsum("ln,lc->nc", onehot, thr_ct)
         q = (thr_ct * aux["em_h"]) * onehot.sum(-1, keepdims=True)
         q = q + jnp.where(aux["die_miss"][:, None], thr_ct * aux["sky"], 0.0)
-        ga = ga + jnp.einsum("ln,lc->nc", cnt, q) * inv_albedo
-        rr_w = jnp.einsum("ln,l->n", cnt_rr, jnp.sum(q, axis=-1))
+        ga = ga + _einsum("ln,lc->nc", cnt, q) * inv_albedo
+        rr_w = _einsum("ln,l->n", cnt_rr, jnp.sum(q, axis=-1))
         ga = ga - (rr_w * inv_p)[:, None] * tiemask
         mt = jnp.where(aux["die_miss"], aux["sky_t"], 0.0)
         m1 = jnp.where(aux["die_miss"], 1.0 - aux["sky_t"], 0.0)
-        gbg = gbg.at[0].add(jnp.einsum("l,lc->c", m1, thr_ct))
-        gbg = gbg.at[1].add(jnp.einsum("l,lc->c", mt, thr_ct))
+        gbg = gbg.at[0].add(_einsum("l,lc->c", m1, thr_ct))
+        gbg = gbg.at[1].add(_einsum("l,lc->c", mt, thr_ct))
         inc = onehot * aux["cont"][:, None].astype(dt)
         cnt = cnt + inc
         cnt_rr = cnt_rr + inc * aux["rr_scaled"][:, None].astype(dt)

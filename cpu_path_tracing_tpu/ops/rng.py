@@ -1,6 +1,6 @@
 """Counter-based RNG: explicit Threefry-2x32.
 
-TPU-native replacement for the reference's per-row mutable ``std::mt19937``
+Replacement for the reference's per-row mutable ``std::mt19937``
 stream (``src/random_state.cpp:3-17``), which is (a) sequential — forcing
 row-granular parallelism — and (b) non-deterministic across runs (the seed
 mixes ``std::random_device``, ``src/random_state.cpp:5``).
@@ -11,20 +11,19 @@ Every draw is a pure function of ``(seed, cell, sample, purpose)``:
     draw block (y0,y1) = threefry2x32((a0,a1), (purpose, block))
 
 so any tiling / chunking / sharding / mesh shape / lane schedule produces the
-*same* numbers; the f64 oracle and the f32 TPU path consume bit-identical
+*same* numbers; the f64 oracle and the f32 fast paths consume bit-identical
 uniforms (uniforms are always materialized in f32 from the high 24 bits).
 
 The block cipher is implemented directly with public jnp ops (Threefry-2x32,
 Salmon et al. 2011 — the PRF family behind jax.random) instead of via typed
 key plumbing: two blocks per bounce instead of three (fold_in costs a full
-block), and the identical integer math runs inside the Pallas megakernel
+block), and the identical integer math runs inside the fused GPU kernel
 without breaking image parity (it imports THIS function).
 
 Round count: 13, the Crush-resistant minimum from Salmon et al. Table 2
-(jax.random uses 20 for extra safety margin).  Measured on v5e: the cipher
-is ~20% of the megakernel's per-iteration cost at 20 rounds, and rendering
-consumes uniforms — not cryptographic margin — so the validated minimum is
-the right default (PERF.md §7).  Rounds that are not a multiple of 4 skip
+(jax.random uses 20 for extra safety margin).  The cipher is a sizeable
+share of a bounce's arithmetic, and rendering consumes uniforms — not
+cryptographic margin — so the validated minimum is the right default.  Rounds that are not a multiple of 4 skip
 the trailing key injection, exactly like Random123's reference
 implementation, whose 13-round variant is what BigCrush validated.
 
@@ -37,11 +36,11 @@ Draw layout per (cell, sample):
       (the reference's draw counts are data-dependent, src/main.cpp:44-97;
       a fixed 4-draw block replaces them — SURVEY.md §3.3)
 
-u_c is RESERVED, deliberately (VERDICT r4 #7): a bounce consumes 3 words
+u_c is RESERVED, deliberately: a bounce consumes 3 words
 and Threefry-2x32 mints 2 per block, so 2 blocks/bounce is the counter-pure
 minimum; reclaiming the 4th word means carrying the previous bounce's spare
-block across iterations (an extra persistent state word) for a measured
-~2-3% forward win, at the price of an RNG-layout change that invalidates
+block across iterations (an extra persistent state word) for a small
+forward win, at the price of an RNG-layout change that invalidates
 every pinned render and refit scene.  It is kept as the slot for a future
 4-draw feature (e.g. a roughness/fuzz draw, whose no-op quirk
 ops/materials.py already documents).
@@ -125,8 +124,7 @@ def camera_uniforms(a0, a1) -> jnp.ndarray:
 
     The subpixel jitter comes from the item-key words THEMSELVES (a0, a1
     are Threefry outputs, i.e. uniform words) and only the lens-disk pair
-    costs a cipher block — one block per regeneration instead of two
-    (measured ~2-3% of short-path scene time).  Reusing PRF output words
+    costs a cipher block — one block per regeneration instead of two.  Reusing PRF output words
     both as the bounce-block subkey and as two uniforms is sound for Monte
     Carlo: correlating (jitter, bounce draws) would amount to
     distinguishing threefry outputs from random given a related key."""

@@ -9,7 +9,7 @@ light (RR survival p >= 1, ``src/main.cpp:128-137``) die *only* at the
 100-bounce depth limit, so a naive batched loop runs ~100 iterations at ~12%
 mean occupancy.
 
-Design (TPU-specific):
+Design:
 
 * A fixed pool of B lanes is kept saturated: whenever a lane's path
   terminates it immediately pulls its next work item and generates the
@@ -18,9 +18,8 @@ Design (TPU-specific):
 
 * Work items are **generation-striped**: lane ``l`` processes items
   ``g*B + l`` for g = 0,1,2,...  This makes the output location of every
-  result a *dense, lane-indexed* slot — crucial because TPU scatter with
-  arbitrary indices costs ~80 ns/element (measured), which would dominate
-  the whole render.  Finished results go to a K-deep ring of [B,3] buffers
+  result a *dense, lane-indexed* slot, so retirement needs no scatter with
+  arbitrary indices.  Finished results go to a K-deep ring of [B,3] buffers
   (K masked dense updates per iteration); when every lane has passed
   generation g (a min-reduce watermark), that ring slot is flushed into the
   output with one dynamic-update-slice and recycled.  A lane stalls only if
@@ -137,10 +136,10 @@ def render_wavefront(
         c_idx = item % n_cells
         s_idx = (sample_start + item // n_cells).astype(jnp.uint32)
         # Contiguity assumption (documented in render_cells_range): cell_ids
-        # is a contiguous span, so the global id is start + offset — a gather
-        # from a megapixel-sized id table would cost several ms/iteration on
-        # TPU.  The clamp keeps padded tail lanes on a valid (duplicate) cell;
-        # their results land in padding slots the caller discards.
+        # is a contiguous span, so the global id is start + offset, with no
+        # gather from a megapixel-sized id table.  The clamp keeps padded
+        # tail lanes on a valid (duplicate) cell; their results land in
+        # padding slots the caller discards.
         cells_g = jnp.minimum(cell_ids[0] + c_idx, cfg.width * cfg.height
                               * cfg.num_subpixels * cfg.num_subpixels - 1)
         a0, a1 = rng_ops.item_keys(seed_pair, cells_g, s_idx)
@@ -246,208 +245,4 @@ def render_wavefront(
         if depth_hist:
             stats["depth_hist"] = hist
         return sums, stats
-    return sums
-
-
-def render_wavefront_pallas(
-    scene: Scene,
-    cfg: RenderConfig,
-    cell_ids,
-    sample_start,
-    num_samples: int,
-    *,
-    lanes: int | None = None,
-    ring_depth: int | None = None,
-    rows: int | None = None,
-    interpret: bool = False,
-    with_stats: bool = False,
-    alias: bool = True,
-):
-    """render_wavefront with the fused Pallas megakernel as the loop body.
-
-    Same queue/generation/ring design; the regen+bounce+retire iteration runs
-    as ONE pallas_call over SoA lane tiles (ops/pallas/megakernel.py), with
-    only the watermark min-reduce, the flush slice and the loop carry left to
-    XLA.  f32 only.  Draws are bit-identical to the XLA wavefront (same
-    Threefry blocks), and the XLA bounce math mirrors the kernel's expression
-    structure chain-for-chain, so per-sample results match the XLA wavefront
-    at-or-near bitwise even at depth 100 (round-3 TPU_SMOKE.md: full-depth
-    deviation 0-3e-10 on six scenes, 2.8e-4 on smallpt; gated on-device by
-    scripts/tpu_smoke.py, bitwise in interpret mode by test_wavefront.py).
-    """
-    from .pallas.megakernel import (
-        LANE,
-        DEFAULT_ROWS,
-        RING_NAMES,
-        STATE_NAMES,
-        F32_STATE,
-        I32_STATE,
-        megakernel_step,
-        pack_camera,
-        pack_scene,
-    )
-
-    from ..render import check_contiguous_cells  # local import to avoid cycle
-
-    check_contiguous_cells(cell_ids)
-    if scene.p0.dtype != jnp.float32:
-        raise ValueError("the pallas wavefront path is float32-only")
-    # Mosaic only targets TPU; elsewhere (CPU tests) use the interpreter.
-    interpret = interpret or jax.devices()[0].platform != "tpu"
-    rows = rows or DEFAULT_ROWS
-    tile = rows * LANE
-    n_cells = cell_ids.shape[0]
-    n_items = n_cells * num_samples
-    K = _resolve_ring_depth(cfg, ring_depth)
-    B = int(min(lanes or cfg.wavefront_lanes, n_items))
-    B = max(tile, B - B % tile)  # kernel needs whole tiles
-    n_gens = -(-n_items // B)
-    n_rows = B // LANE
-
-    table = pack_scene(scene)
-    cam = pack_camera(scene)
-
-    vzero = (cell_ids[0] * 0).astype(jnp.int32)
-    izero = jnp.zeros((n_rows, LANE), jnp.int32) + vzero
-    fzero = izero.astype(jnp.float32)
-    state0 = {n: fzero for n in F32_STATE}
-    state0.update({n: izero for n in I32_STATE})
-    state0["gen"] = izero - 1
-    state0.update({n: izero.astype(jnp.uint32) for n in ("k0", "k1")})
-    assert set(state0) == set(STATE_NAMES)
-    ring0 = {n: jnp.zeros((K, n_rows, LANE), jnp.float32) + vzero.astype(jnp.float32) for n in RING_NAMES}
-    out0 = {c: jnp.zeros((n_gens * B,), jnp.float32) + vzero.astype(jnp.float32) for c in "xyz"}
-
-    cell_start = cell_ids[0]
-    kw = dict(
-        cfg=cfg, n_spheres=scene.num_spheres, n_cells=n_cells, n_items=n_items,
-        n_gens=n_gens, lanes=B, ring_depth=K, rows=rows, interpret=interpret,
-        alias=alias, ior=scene.ior,
-    )
-
-    def cond(carry):
-        _, _, _, g_flush, _, _ = carry
-        return g_flush < n_gens
-
-    def body(carry):
-        state, ring, out, g_flush, nseg, iters = carry
-        dyn = jnp.stack(
-            [g_flush, cell_start, jnp.asarray(sample_start, jnp.int32) + vzero]
-        ).astype(jnp.int32)
-        state, ring, dseg = megakernel_step(state, ring, table, cam, dyn, **kw)
-        nseg = nseg + dseg
-
-        low = jnp.where(state["alive"] != 0, state["gen"] - 1, state["gen"])
-        watermark = jnp.min(low)
-        do_flush = g_flush <= watermark
-        gsafe = jnp.where(do_flush, g_flush, 0)
-        slot = gsafe % K
-        out, ring = dict(out), dict(ring)
-        for c, rn in zip("xyz", RING_NAMES):
-            # Single-slot slice/update: a masked select over the whole ring
-            # here costs ~3 full K*B passes of HBM traffic per iteration.
-            rowb = jax.lax.dynamic_slice(ring[rn], (slot, vzero, vzero), (1, n_rows, LANE))
-            out[c] = jax.lax.cond(
-                do_flush,
-                lambda o, r: jax.lax.dynamic_update_slice(o, r, (gsafe * B,)),
-                lambda o, r: o,
-                out[c], rowb.reshape(B),
-            )
-            cleared = jnp.where(do_flush, 0.0, rowb)
-            ring[rn] = jax.lax.dynamic_update_slice(ring[rn], cleared, (slot, vzero, vzero))
-        g_flush = g_flush + do_flush.astype(jnp.int32)
-        return state, ring, out, g_flush, nseg, iters + 1
-
-    carry0 = (state0, ring0, out0, vzero, vzero, vzero)
-    _, _, out, _, nseg, iters = jax.lax.while_loop(cond, body, carry0)
-
-    res = jnp.stack([out["x"][:n_items], out["y"][:n_items], out["z"][:n_items]], axis=-1)
-    per_sample = res.reshape(num_samples, n_cells, 3)
-    sums = jax.lax.fori_loop(
-        1, num_samples, lambda i, acc: acc + per_sample[i], per_sample[0]
-    )
-    if with_stats:
-        return sums, {"segments": nseg, "iters": iters, "lanes": B}
-    return sums
-
-
-def render_wavefront_pallas_persistent(
-    scene: Scene,
-    cfg: RenderConfig,
-    cell_ids,
-    sample_start,
-    num_samples: int,
-    *,
-    rows: int | None = None,
-    ring_depth: int | None = None,
-    interpret: bool = False,
-    with_stats: bool = False,
-    unroll: int | None = None,
-):
-    """Whole-render persistent megakernel: one pallas_call per launch.
-
-    Same queue/generation/ring design as render_wavefront_pallas, but the
-    wavefront loop runs INSIDE the kernel with the lane pool resident in
-    VMEM scratch (ops/pallas/megakernel.py make_persistent_kernel) — per
-    iteration nothing round-trips HBM except the per-generation result
-    flush, which removes the state-traffic bound of the per-step path
-    (PERF.md).  The pool is one rows x 128 tile; per-item radiance depends
-    only on (cell, sample) via the item keys, so results are bitwise
-    identical to BOTH other wavefront paths regardless of pool width.
-    """
-    from .pallas.megakernel import (
-        LANE,
-        DEFAULT_ROWS,
-        pack_camera,
-        pack_scene,
-        persistent_render,
-    )
-
-    from ..render import check_contiguous_cells  # local import to avoid cycle
-
-    check_contiguous_cells(cell_ids)
-    if scene.p0.dtype != jnp.float32:
-        raise ValueError("the pallas wavefront path is float32-only")
-    interpret = interpret or jax.devices()[0].platform != "tpu"
-    rows = rows or cfg.pallas_rows or DEFAULT_ROWS
-    # Deeper default ring than the per-step path: ring traffic is VMEM-only
-    # here, so K=16 buys straggler headroom for free (measured: occ
-    # 0.72 -> 0.84 on disco going K=8 -> 16).
-    if ring_depth is None and cfg.wavefront_ring is None:
-        ring_depth = 16
-    K = _resolve_ring_depth(cfg, ring_depth)
-    n_cells = cell_ids.shape[0]
-    n_items = n_cells * num_samples
-    Bt = rows * LANE
-    n_gens = -(-n_items // Bt)
-
-    table = pack_scene(scene)
-    cam = pack_camera(scene)
-    vzero = (cell_ids[0] * 0).astype(jnp.int32)
-    dyn = jnp.stack(
-        [cell_ids[0], jnp.asarray(sample_start, jnp.int32) + vzero]
-    ).astype(jnp.int32)
-
-    out, nseg, iters = persistent_render(
-        table, cam, dyn, cfg=cfg, n_spheres=scene.num_spheres,
-        n_cells=n_cells, n_items=n_items, n_gens=n_gens, rows=rows,
-        ring_depth=K, interpret=interpret, ior=scene.ior,
-        unroll=unroll or cfg.pallas_unroll,
-    )
-    # out[g, c, row, lane]: flat index (g*Bt + row*128 + lane) IS the global
-    # item index.  Reduce each component SEPARATELY and stack only the final
-    # [n_cells] vectors: a [*, 3] intermediate would put 3 on the minor axis,
-    # which TPU pads to 128 lanes (a ~40x layout blowup on the full item
-    # buffer).
-    comps = []
-    oc = out.reshape(n_gens, 3, Bt)
-    for c in range(3):
-        flat = oc[:, c, :].reshape(n_gens * Bt)[:n_items]
-        per_sample = flat.reshape(num_samples, n_cells)
-        comps.append(jax.lax.fori_loop(
-            1, num_samples, lambda i, acc, ps=per_sample: acc + ps[i],
-            per_sample[0]))
-    sums = jnp.stack(comps, axis=-1)
-    if with_stats:
-        return sums, {"segments": nseg, "iters": iters, "lanes": Bt}
     return sums

@@ -6,7 +6,7 @@ executor has no retry path, and the image lives only in RAM until the final
 PPM write, ``src/main.cpp:240-247``).
 
 Here failure detection and elastic recovery are first-class, built on two
-properties of the TPU design:
+properties of the batched design:
 
 * **Idempotence** — a tile's radiance sums are a pure function of
   ``(scene, config, tile cell span, seed)``; the counter-based RNG
@@ -15,7 +15,8 @@ properties of the TPU design:
   always safe.
 * **Durability** — per-tile completion is recorded in the progressive
   checkpoint, so a preempted/killed job resumes with only its *missing*
-  tiles (TPU preemption is the realistic failure mode this targets).
+  tiles (preemption of a shared accelerator is the realistic failure mode
+  this targets).
 
 Failure detection is exception-based: any error raised while rendering a tile
 (XLA runtime error, device loss surfaced by jax, or an injected fault) marks

@@ -2,13 +2,13 @@
 
 The reference is a single process with a shared-memory thread pool
 (``src/main.cpp:214-236``); it has no communication backend at all.  This
-module is the TPU-native distributed layer:
+module is the distributed layer:
 
 * ``init_distributed`` — ``jax.distributed.initialize()`` over the process
-  group (DCN / coordinator service); on the CPU backend it enables Gloo
+  group (coordinator service); on the CPU backend it enables Gloo
   collectives so the full multi-process path runs (and is tested) on one
   machine — tests/test_distributed.py launches real 2-process jobs.
-* a global ``('tiles', 'samples')`` mesh over every chip in the slice; scene
+* a global ``('tiles', 'samples')`` mesh over every device of every host; scene
   parameters replicated, image cells sharded.  Forward rendering needs ZERO
   cross-host collectives until the final image gather — and none at all in
   shard-output mode, where each host writes only its own tile shard.
@@ -47,9 +47,8 @@ def init_distributed(
     process_id: Optional[int] = None,
 ) -> None:
     """Join the process group.  Arguments fall back to the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) and, on
-    real TPU pods, to the TPU metadata autodetection built into
-    jax.distributed.initialize.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) and then
+    to whatever cluster autodetection jax.distributed.initialize has.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
@@ -57,10 +56,10 @@ def init_distributed(
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
     # CPU backend: cross-process collectives need the Gloo implementation
-    # (no-op on TPU, where XLA rides ICI/DCN natively).
+    # (no effect on accelerators, whose collectives XLA runs natively).
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # older/newer jax without the option: TPU path only
+    except Exception:  # older/newer jax without the option: accelerators only
         pass
     jax.distributed.initialize(
         coordinator_address=coordinator,
@@ -70,7 +69,7 @@ def init_distributed(
 
 
 def global_mesh(n_samples: int = 1) -> Mesh:
-    """('tiles', 'samples') mesh over every device in the slice (all hosts)."""
+    """('tiles', 'samples') mesh over every device of every host."""
     devices = np.asarray(jax.devices())
     if devices.size % n_samples:
         raise ValueError(f"{devices.size} devices not divisible by samples={n_samples}")
@@ -184,7 +183,7 @@ def wait_for_shards(out_dir: str, num_processes: int, timeout: float = 300.0,
         time.sleep(poll)
 
 
-# Sentinel protocol for surviving non-zero processes (ADVICE r4 medium):
+# Sentinel protocol for surviving non-zero processes:
 # jax.distributed's atexit shutdown barrier fatally aborts every survivor
 # once the coordinator marks a dead task ERROR, so after a detected host
 # loss ALL survivors must skip it via os._exit(0) — not just process 0.

@@ -1,6 +1,6 @@
 """Device-mesh construction.
 
-TPU-native replacement for the reference's Taskflow thread pool
+Replacement for the reference's Taskflow thread pool
 (``src/main.cpp:214-236``, one task per image row) — parallelism is a
 ``jax.sharding.Mesh`` with two axes:
 

@@ -54,11 +54,11 @@ def render_cells_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh) -> jax.Arr
         acc = jax.lax.psum(acc, SAMPLE_AXIS)  # the only forward collective
         return acc / cfg.spp
 
-    # check_vma only off for the pallas path: pallas_call outputs carry no
-    # varying-axes metadata, so the vma type-checker cannot see through the
-    # megakernel (correctness there is covered by the mesh-shape-invariance
-    # tests); the XLA integrators keep full static vma checking (VERDICT r2
-    # weak #6).
+    # check_vma only off for the fused GPU kernel: pallas_call outputs carry
+    # no varying-axes metadata, so the vma type-checker cannot see through
+    # the kernel (chip_smoke.py --chips 4 checks the sharded kernel against
+    # the one-card render); the XLA integrators keep full static vma
+    # checking.
     out = jax.shard_map(
         shard_fn,
         mesh=mesh,

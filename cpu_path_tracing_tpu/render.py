@@ -1,6 +1,6 @@
 """High-level rendering pipeline.
 
-TPU-native replacement for the reference's driver loop
+Replacement for the reference's driver loop
 (``main``/``render_subpixel``, ``src/main.cpp:160-248``): instead of one
 Taskflow task per image row with a sequential per-row RNG
 (``src/main.cpp:214-236``), the image is a flat array of *subpixel cells*
@@ -64,7 +64,7 @@ def camera_rays_for_cells(scene: Scene, cfg: RenderConfig, cell_ids, u4, dtype):
         jx, jy = u4[:, 0], u4[:, 1]
     x_in = x.astype(dtype) + sx.astype(dtype) * sub_len + jx * sub_len
     y_in = y.astype(dtype) + sy.astype(dtype) * sub_len + jy * sub_len
-    # Multiply by the reciprocal constant (not divide) — the megakernel's
+    # Multiply by the reciprocal constant (not divide) — the fused kernel's
     # exact structure (ops/intersect.py docstring on why this matters).
     s = x_in * jnp.asarray(1.0 / cfg.width, dtype)
     t = y_in * jnp.asarray(1.0 / cfg.height, dtype)
@@ -86,8 +86,8 @@ def camera_rays(scene: Scene, cfg: RenderConfig, cell_ids, sample_idx, root_key,
 def check_contiguous_cells(cell_ids) -> None:
     """Reject non-contiguous cell id sets on the wavefront paths.
 
-    The wavefront integrators regenerate ids as ``cell_ids[0] + offset`` (an
-    id-table gather costs ms/iteration on TPU), so an arbitrary id set would
+    The wavefront integrators regenerate ids as ``cell_ids[0] + offset`` (no
+    per-iteration id-table gather), so an arbitrary id set would
     silently render the WRONG cells.  Validate whenever the ids are concrete
     (i.e. the caller passed a real array rather than a tracer); under jit the
     contract is enforced at the jitted boundary where the array was concrete.
@@ -105,18 +105,36 @@ def check_contiguous_cells(cell_ids) -> None:
 
 
 def resolve_integrator(scene: Scene, cfg: RenderConfig) -> str:
-    """Resolve integrator='auto' to the concrete path for this backend/dtype
-    (pallas on TPU f32, XLA wavefront otherwise)."""
+    """The one place that picks the integrator for this backend and scene.
+
+    ``auto`` resolves to the fused GPU kernel (``pallas``,
+    ops/pallas/gpu_kernel.py) on the ``gpu`` backend for float32 scenes
+    with uniform jitter, and to the XLA wavefront everywhere else.  An
+    explicit choice is returned as given, after checking the kernel's
+    jitter filter."""
     integ = cfg.integrator
     if integ == "auto":
-        on_tpu = jax.default_backend() == "tpu"
+        on_gpu = jax.default_backend() == "gpu"
         f32 = scene.p0.dtype == jnp.float32
-        integ = "pallas" if (on_tpu and f32 and cfg.jitter == "uniform") else "wavefront"
+        integ = "pallas" if (on_gpu and f32 and cfg.jitter == "uniform") else "wavefront"
     if integ == "pallas" and cfg.jitter != "uniform":
         raise ValueError(
-            f"jitter={cfg.jitter!r} is not implemented in the pallas "
-            f"megakernel's in-kernel camera; use integrator='wavefront'/'batch'")
+            f"jitter={cfg.jitter!r} is not implemented in the fused GPU "
+            f"kernel's in-kernel camera; use integrator='wavefront'/'batch'")
     return integ
+
+
+def span_renderer(scene: Scene, cfg: RenderConfig):
+    """The forward span renderer ``resolve_integrator`` picks, for callers
+    that want its stats: ``f(scene, cfg, cell_ids, sample_start, n,
+    with_stats=True) -> (sums, {"segments", ...})``."""
+    if resolve_integrator(scene, cfg) == "pallas":
+        from .ops.pallas.gpu_kernel import render_kernel
+
+        return render_kernel
+    from .ops.wavefront import render_wavefront
+
+    return render_wavefront
 
 
 def render_cells_range(scene: Scene, cfg: RenderConfig, cell_ids, sample_start, num_samples: int) -> jax.Array:
@@ -127,27 +145,16 @@ def render_cells_range(scene: Scene, cfg: RenderConfig, cell_ids, sample_start, 
     range sums to the identical total.  [B,3], un-clamped, un-normalized.
 
     NOTE: the wavefront integrator assumes ``cell_ids`` is a CONTIGUOUS span
-    (it regenerates ids as cell_ids[0] + offset — an id-table gather costs
-    ms/iteration on TPU).  Every in-tree caller passes arange spans; pass
+    (it regenerates ids as cell_ids[0] + offset, with no id-table gather).
+    Every in-tree caller passes arange spans; pass
     integrator='batch' for arbitrary id sets.  Concrete non-contiguous ids
     raise (check_contiguous_cells).
     """
     integ = resolve_integrator(scene, cfg)
     if integ in ("wavefront", "pallas"):
         check_contiguous_cells(cell_ids)
-    if integ == "wavefront" and cfg.loop == "while":
-        from .ops.wavefront import render_wavefront
-
-        return render_wavefront(scene, cfg, cell_ids, sample_start, num_samples)
-    if integ == "pallas" and cfg.loop == "while":
-        if cfg.pallas_persistent:
-            from .ops.wavefront import render_wavefront_pallas_persistent
-
-            return render_wavefront_pallas_persistent(
-                scene, cfg, cell_ids, sample_start, num_samples)
-        from .ops.wavefront import render_wavefront_pallas
-
-        return render_wavefront_pallas(scene, cfg, cell_ids, sample_start, num_samples)
+        if cfg.loop == "while":
+            return span_renderer(scene, cfg)(scene, cfg, cell_ids, sample_start, num_samples)
 
     dtype = scene.p0.dtype
     root_key = rng_ops.master_key(cfg.seed)
@@ -183,7 +190,7 @@ def tune_wavefront(scene: Scene, cfg: RenderConfig, probe_cells: int = 1 << 15) 
     """Auto-tune the wavefront lane-pool width and ring depth for this scene.
 
     The wavefront's throughput regime depends on the path-length
-    distribution (measured on v5e, BENCH_SUITE.md / round-3 probes):
+    distribution:
 
     * LONG-path scenes (closed boxes, E[depth] ~ 12): per-generation work
       dominates; a maximal pool (cfg.wavefront_lanes) at ring K=8 is best.
@@ -192,8 +199,8 @@ def tune_wavefront(scene: Scene, cfg: RenderConfig, probe_cells: int = 1 << 15) 
       generations' stragglers run ~100 iterations against a mostly-idle pool
       (drain tail), and mid-render the K-generation stall headroom binds.
       Shrinking the pool (more generations, relatively smaller tail) and
-      deepening the ring raised measured throughput 1.7-3.1x (simple
-      179->308, depth_of_field 295->450, random_spheres 71->217 Mrays/s).
+      deepening the ring shortens that tail.  On the H100 this tuning is
+      not measured yet.
 
     Pilot: one-sample batch-integrator render of a strided ~``probe_cells``
     cell subset (strided, not a contiguous span — path length correlates
@@ -205,19 +212,9 @@ def tune_wavefront(scene: Scene, cfg: RenderConfig, probe_cells: int = 1 << 15) 
     from .ops import rng as rng_ops
     from .ops.integrator import radiance
 
-    # The persistent megakernel ignores the lane-pool width (its pool is the
-    # fixed cfg.pallas_rows x 128 resident tile); only the ring depth K is
-    # worth setting.  Measured on v5e (PERF.md): long-path scenes want K=32
-    # (occupancy 0.73 -> 0.89 on disco vs K=8); many-sphere scenes have
-    # heavy path-length VARIANCE tails (dielectric + RR) and want K=64
-    # (random_spheres occupancy 0.62 -> 0.94); plain short-path scenes are
-    # fine at the default 16.
-    if resolve_integrator(scene, cfg) == "pallas" and cfg.pallas_persistent:
-        if cfg.wavefront_ring is not None:
-            return cfg
-        if scene.num_spheres >= 24:
-            return cfg.replace(wavefront_ring=64)
-        return cfg.replace(wavefront_ring=32 if scene.num_spheres >= 6 else 16)
+    # The fused GPU kernel has no lane pool or ring to tune.
+    if resolve_integrator(scene, cfg) == "pallas":
+        return cfg
 
     n = cfg.num_cells
     stride = max(1, n // probe_cells)
@@ -237,7 +234,6 @@ def tune_wavefront(scene: Scene, cfg: RenderConfig, probe_cells: int = 1 << 15) 
     # per launch (launch size mirrors the bench/CLI sample chunking cap).
     items = min(n * cfg.spp, 64 << 20)
     lanes = max(1 << 16, min(cfg.wavefront_lanes, items // 256))
-    lanes -= lanes % 8192  # megakernel tile granularity (rows x 128)
     ring = cfg.wavefront_ring if cfg.wavefront_ring is not None else 32
     return cfg.replace(wavefront_lanes=int(lanes), wavefront_ring=ring)
 
@@ -280,10 +276,10 @@ def finalize_image(cell_means: jax.Array, cfg: RenderConfig) -> jax.Array:
 def render_image(scene: Scene, cfg: RenderConfig) -> jax.Array:
     """Render the full image.  Returns linear-radiance [H,W,3] float array.
 
-    Samples are chunked so no single launch's wavefront item buffer exceeds
-    the ``sample_chunk_for`` cap (VERDICT r4 weak #2: an unchunked
-    ``render --scene disco_sphere --total-spp 1024`` allocated a ~9.7 GB
-    item buffer on a 16 GB chip); cells are additionally chunked to
+    Samples are chunked so no single launch's item buffer exceeds the
+    ``sample_chunk_for`` cap (an unchunked ``render --scene disco_sphere
+    --total-spp 1024`` would allocate a ~9.7 GB item buffer); cells are
+    additionally chunked to
     cfg.ray_chunk when set.  Keys depend only on (seed, cell, sample)
     (ops/rng.py), so cell chunking is bitwise-invariant; sample chunking —
     which only engages above the item cap — re-associates the per-cell f32

@@ -103,3 +103,27 @@ def read_ppm(path: str) -> np.ndarray:
     vals = np.array(tokens[4 : 4 + w * h * 3], dtype=np.int32)
     assert maxv == 255
     return vals.reshape(h, w, 3).astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an RGB8 PNG written by ``write_png`` back into uint8 [H,W,3]
+    (filter type 0 rows, as both writers emit; for tests and checks)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise ValueError(f"{path}: not an RGB8 PNG")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if np.any(rows[:, 0]):
+        raise ValueError(f"{path}: filtered rows are not supported")
+    return rows[:, 1:].reshape(h, w, 3).copy()

@@ -9,9 +9,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
+import subprocess
 import sys
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 
 @dataclasses.dataclass
@@ -131,3 +133,32 @@ class Timer:
     def __exit__(self, *exc):
         self.seconds = time.perf_counter() - self.t0
         return False
+
+
+def device_record() -> dict:
+    """The device a measurement ran on: JAX's view of it, and the card's
+    name and power limit as nvidia-smi reports them (None without one)."""
+    import jax
+
+    dev = jax.devices()[0]
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        smi = None
+    return {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices()), "nvidia_smi": smi}
+
+
+def median_seconds(run: Callable[[], object], repeats: int = 3) -> float:
+    """Median wall time of ``run()`` over ``repeats`` calls, each waited
+    for with ``block_until_ready``.  Warm ``run`` up (compile) first."""
+    import jax
+
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        jax.block_until_ready(run())
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)

@@ -6,7 +6,7 @@ library is built on demand with ``make -C native`` and loaded lazily; every
 entry point has a byte-compatible Python fallback in utils/image.py, which is
 also the oracle the parity tests compare against.
 
-Set ``PT_TPU_NATIVE=0`` to force the pure-Python path.
+Set ``PT_NATIVE=0`` to force the pure-Python path.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    if os.environ.get("PT_TPU_NATIVE", "1") == "0":
+    if os.environ.get("PT_NATIVE", "1") == "0":
         return None
     if not os.path.exists(_LIB_PATH):
         make_dir = os.path.join(_REPO_ROOT, "native")

@@ -2,7 +2,7 @@
 //
 // The reference's entire output path is C++ (gamma transfer in
 // src/utils.cpp:11-16, PPM writer in src/main.cpp:240-247, via fmt); this
-// library is its native counterpart for the TPU framework: tone-mapping and
+// library is its native counterpart for this framework: tone-mapping and
 // PPM/PNG encoding of multi-megapixel frames without holding the Python GIL
 // on the hot loop.  Exposed as a plain C ABI consumed through ctypes
 // (cpu_path_tracing_tpu/utils/native.py); the Python implementations remain
@@ -129,7 +129,7 @@ int ptio_write_png(const char* path, const float* img, int32_t width, int32_t he
 // the Python thread, so progressive checkpoint/preview flushes overlap with
 // device compute instead of stalling the render loop.  The counterpart of
 // the concurrency role Taskflow plays in the reference (src/main.cpp:214-236)
-// on the host side of the TPU design.  Jobs copy their pixel buffer, so the
+// on the host side of the accelerator design.  Jobs copy their pixel buffer, so the
 // caller may reuse/free its array immediately after submit.
 // ---------------------------------------------------------------------------
 

@@ -12,14 +12,14 @@ measured reasons (full post-mortem in docs/RECONSTRUCTION.md):
    optimum and official-metric optimum).
 2. Geometry (sphere positions/radii, camera) has near-zero detached-
    estimator gradient in closed scenes — it must be searched anyway.
-3. An official-metric evaluation is CHEAP on the persistent megakernel
-   (256x192 @ 1024 total spp ≈ 1.3 s on one v5e), so ~400 evaluations —
-   a full multi-wave search — cost minutes.
+3. An official-metric evaluation (256x192 @ 1024 total spp) is cheap on an
+   accelerator, so ~400 evaluations — a full multi-wave search — are
+   affordable.
 
 Method: coordinate descent with shrinking steps over a scene
 PARAMETRIZATION (per-wall brightness scales against image-measured
 chromas, light emission/size/position, sphere geometry, camera), with a
-JSON state file so waves resume across tunnel drops.  Alternating waves
+JSON state file so waves resume after an interruption.  Alternating waves
 (colors -> light -> sphere geometry -> colors) escape the single-wave
 plateaus; each wave's trace is printed and kept.
 

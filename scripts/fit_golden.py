@@ -1,4 +1,4 @@
-"""Inverse-render the reference's retired goldens (VERDICT r2 #3, by
+"""Inverse-render the reference's retired goldens (by
 differentiable rendering).
 
 The clear_light / greenish_party goldens have no surviving scene source and

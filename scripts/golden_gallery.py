@@ -2,7 +2,7 @@
 
 Produces the README gallery table: pooled MAD (tonemapped, /255 units —
 reconstruct.score) between this framework's render and each of the six
-goldens in /root/reference/samples.  Run on TPU (high spp needed: the
+goldens in /root/reference/samples.  Run on a GPU (high spp needed: the
 reference's per-subpixel clamp makes brightness spp-dependent).
 
 Usage: python scripts/golden_gallery.py [--spp 512] [--out GALLERY.md]

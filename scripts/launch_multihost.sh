@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Launch an N-process multi-host render locally (CPU backend, Gloo
-# collectives) — the single-machine rehearsal of a TPU pod-slice launch,
+# collectives) — the single-machine rehearsal of a multi-host launch,
 # where each process would instead run on its own host with
-# JAX_PLATFORMS unset (TPU) and the same --coordinator flags.
+# JAX_PLATFORMS unset (its GPUs) and the same --coordinator flags.
 #
 # Usage: scripts/launch_multihost.sh [NPROCS] [DEVS_PER_PROC] [extra render args...]
 set -euo pipefail

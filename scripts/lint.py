@@ -187,7 +187,7 @@ def main(argv: list[str]) -> int:
     else:
         targets = [root / "cpu_path_tracing_tpu", root / "tests",
                    root / "scripts", root / "bench.py",
-                   root / "__graft_entry__.py"]
+                   root / "chip_smoke.py", root / "__graft_entry__.py"]
     files: list[pathlib.Path] = []
     for t in targets:
         if t.is_dir():

@@ -13,7 +13,7 @@ if git ls-files | grep '^_' | grep -vq '^__graft_entry__'; then
 fi
 
 echo "== compile check =="
-python -m compileall -q cpu_path_tracing_tpu tests bench.py __graft_entry__.py
+python -m compileall -q cpu_path_tracing_tpu tests bench.py chip_smoke.py __graft_entry__.py
 
 echo "== format gate (unconditional; scripts/format.py, stdlib) =="
 # The reference's clang-format diff gate (its precommit.sh:3-5) — run the

@@ -1,10 +1,10 @@
-"""Golden-reconstruction harness (VERDICT r1 next-round #3).
+"""Golden-reconstruction harness.
 
 The reference ships six golden renders in ``/root/reference/samples`` but only
 three scene sources survive (the headers were edited in place; SURVEY.md §6).
 This tool renders a candidate scene registered in models/scenes.py and scores
 it against a golden: both images are mean-pooled to a common grid and compared
-as 8-bit values (MAD = mean |a-b| in /255 units — the metric VERDICT r1 used).
+as 8-bit values (MAD = mean |a-b| in /255 units).
 
 Usage:
     python scripts/reconstruct.py --scene depth_of_field \

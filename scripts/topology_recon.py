@@ -1,4 +1,4 @@
-"""Emitter-TOPOLOGY outer search for the two weak goldens (VERDICT r4 #3).
+"""Emitter-TOPOLOGY outer search for the two weak goldens.
 
 docs/RECONSTRUCTION.md's residual analysis attributes the remaining
 clear_light (MAD 15.6) / greenish_party (21.4) gaps to smooth low-frequency
@@ -25,8 +25,8 @@ outside the frustum:
 
 Every topology runs the same budgeted inner search from the same committed
 x0 (plus the prior's emitter seed), so the comparison is apples-to-apples;
-per-topology JSON state files make the whole sweep resumable across tunnel
-drops.  The winner gets a longer refinement run.
+per-topology JSON state files make the whole sweep resumable after an
+interruption.  The winner gets a longer refinement run.
 
 Usage:
   python scripts/topology_recon.py --target greenish_party --rounds 5 \

@@ -52,8 +52,8 @@ def test_checkpoint_file_is_atomic(tmp_path):
 
 @pytest.mark.slow
 def test_invert_checkpoint_resume_is_exact(tmp_path):
-    """Inverse-mode optimizer-state checkpoint (SURVEY.md §5.4, VERDICT r1
-    missing #2): save at step k, reload, continue — params/opt state must be
+    """Inverse-mode optimizer-state checkpoint (SURVEY.md §5.4): save at
+    step k, reload, continue — params/opt state must be
     identical to the uninterrupted run."""
     import optax
 

@@ -76,7 +76,7 @@ def test_unknown_scene_rejected():
 
 def test_bench_scaling(tmp_path, capsys):
     """The strong-scaling harness runs on the virtual mesh and writes the
-    artifact (VERDICT r2 #4: a test so it can't rot)."""
+    artifact (a test so it can't rot)."""
     out = str(tmp_path / "scaling.md")
     rc = main(
         ["bench", "--scaling", "--scene", "box", "--width", "16", "--height", "12",

@@ -1,4 +1,4 @@
-"""Pinned-render regression tests (VERDICT r3 hygiene #8).
+"""Pinned-render regression tests.
 
 The committed ``tests/data/pin_*.npz`` files are fixed-seed renders of three
 registered scenes at 64x48 @ 8 total spp (batch integrator, CPU f32).  The

@@ -122,7 +122,7 @@ def test_geometry_grad_zero_in_closed_scene():
 @pytest.mark.slow
 def test_grad_camera_scalars():
     """FD parity for the camera scalars declared optimizable: vfov, aperture,
-    focus_distance, and look_at (VERDICT r1 weak #5)."""
+    focus_distance, and look_at."""
     import dataclasses
 
     from cpu_path_tracing_tpu.render import render_cells_range
@@ -211,8 +211,8 @@ def test_remat_grad_identical():
 
 @pytest.mark.slow
 def test_grad_full_depth_100():
-    """FD parity at the production max_depth=100 (VERDICT r1 missing #1:
-    'a full-depth FD test') — the rematerialized scan all the way down."""
+    """FD parity at the production max_depth=100 — the rematerialized scan
+    all the way down."""
     cfg = pt.RenderConfig(width=6, height=4, spp=2, max_depth=100,
                           loop="scan", integrator="batch", remat=True)
     scene, cell_ids, target, params = _setup_open(fields=("p0", "albedo"), cfg=cfg)
@@ -289,10 +289,10 @@ def test_inverse_rendering_recovers_albedo():
 
 def test_compact_scan_primal_and_grad_exact():
     """Live-lane compaction (ops/integrator.radiance_compact — the
-    adaptive-depth backward of VERDICT r4 #1) must be invisible: bitwise
+    adaptive-depth backward) must be invisible: bitwise
     primal, no truncated lanes, and gradients equal to the plain fixed-width
-    scan up to lane-summation order.  FAST tier by design (ADVICE r4: the
-    default gate must exercise gradient correctness)."""
+    scan up to lane-summation order.  FAST tier by design (the default
+    gate must exercise gradient correctness)."""
     from cpu_path_tracing_tpu.ops import rng as rng_ops
     from cpu_path_tracing_tpu.ops.integrator import radiance, radiance_compact
     from cpu_path_tracing_tpu.grad import tune_backward_schedule
@@ -330,7 +330,7 @@ def test_compact_scan_primal_and_grad_exact():
 
 def test_compact_scan_fd_smoke():
     """Cheap FD smoke THROUGH the compacted remat backward in the fast tier
-    (ADVICE r4: a grad regression must not pass precommit)."""
+    (a grad regression must not pass precommit)."""
     from cpu_path_tracing_tpu.grad import make_diff_render
 
     cfg = pt.RenderConfig(width=6, height=4, spp=2, max_depth=16)

@@ -84,8 +84,8 @@ def test_subpixel_clamp_before_average():
 
 def test_tune_wavefront_regimes():
     """Pilot-based wavefront auto-tuner: long-path scenes keep the maximal
-    pool; short-path scenes get a shrunken pool + deep ring (round-3 probe:
-    simple 179->308, depth_of_field 295->450 Mrays/s on v5e)."""
+    pool; short-path scenes get a shrunken pool + deep ring (a shorter
+    drain tail)."""
     from cpu_path_tracing_tpu.render import tune_wavefront
 
     cfg = RenderConfig(width=32, height=24, spp=16, max_depth=40)
@@ -94,16 +94,15 @@ def test_tune_wavefront_regimes():
 
     simple = get_scene("simple", 32, 24)
     tuned = tune_wavefront(simple, cfg)
-    assert tuned.wavefront_lanes <= cfg.wavefront_lanes
-    assert tuned.wavefront_lanes % 8192 == 0
+    assert 1 << 16 <= tuned.wavefront_lanes <= cfg.wavefront_lanes
     assert tuned.wavefront_ring == 32
     # explicit ring settings are respected
     assert tune_wavefront(simple, cfg.replace(wavefront_ring=16)).wavefront_ring == 16
 
 
 def test_render_image_sample_chunking_capped_and_equivalent(monkeypatch):
-    """render_image must cap per-launch wavefront items (VERDICT r4 weak #2:
-    plain `render` at production spp could allocate a ~10 GB item buffer)
+    """render_image must cap per-launch wavefront items (plain `render` at
+    production spp could otherwise allocate a ~10 GB item buffer)
     and the chunked image must match the unchunked one to f32 summation
     association (~1 ulp of the sample sum)."""
     import cpu_path_tracing_tpu.render as render_mod
@@ -136,8 +135,8 @@ def test_render_image_sample_chunking_capped_and_equivalent(monkeypatch):
 def test_tent_filter_statistics_and_dispatch():
     """jitter='tent' must (a) reproduce the smallpt tent distribution —
     mean 0.5 subpixel units, wider-than-uniform spread, support [-0.5,1.5]
-    — (b) refuse the pallas kernel (no in-kernel tent camera), (c) resolve
-    'auto' away from pallas."""
+    — (b) refuse the fused GPU kernel (no in-kernel tent camera), (c)
+    resolve 'auto' away from it."""
     import jax.numpy as jnp_
     from cpu_path_tracing_tpu.render import (
         camera_rays_for_cells, resolve_integrator)
@@ -163,5 +162,5 @@ def test_tent_filter_statistics_and_dispatch():
     assert j.std() > np.sqrt(1 / 12) + 0.05  # wider than uniform
 
     assert resolve_integrator(scene, cfg_t.replace(integrator="auto")) == "wavefront"
-    with pytest.raises(ValueError, match="pallas"):
+    with pytest.raises(ValueError, match="fused GPU kernel"):
         resolve_integrator(scene, cfg_t.replace(integrator="pallas"))

@@ -98,3 +98,32 @@ def test_replay_zero_albedo_documented_deviation():
     # exactly-zero channels get zero gradient (the documented deviation)
     zero_mask = np.asarray(scene.albedo) == 0.0
     assert np.all(np.asarray(g["albedo"])[zero_mask] == 0.0)
+
+
+def _dot_precisions(jaxpr):
+    """precision of every dot_general in a jaxpr, sub-jaxprs included."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out.extend(_dot_precisions(sub))
+    return out
+
+
+@pytest.mark.parametrize("fn", ["replay_param_grads", "replay_param_grads_wavefront"])
+def test_replay_contractions_run_at_highest_precision(fn):
+    """A float32 contraction may run in TF32 on a GPU; every dot_general of
+    the replay must ask for HIGHEST (the one-hot cotangent select included)."""
+    from cpu_path_tracing_tpu.ops import replay
+
+    cfg = pt.RenderConfig(width=4, height=4, spp=1, max_depth=4)
+    scene = pt.get_scene("box", 4, 4, dtype=jnp.float32)
+    ids = jnp.arange(cfg.num_cells, dtype=jnp.int32)
+    ct = jnp.ones((cfg.num_cells, 3), jnp.float32)
+    jaxpr = jax.make_jaxpr(
+        lambda s, c: getattr(replay, fn)(s, cfg, ids, 0, 1, c))(scene, ct)
+    precisions = _dot_precisions(jaxpr.jaxpr)
+    assert precisions, "no contraction found"
+    highest = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+    assert all(p == highest for p in precisions), precisions

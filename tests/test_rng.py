@@ -1,4 +1,4 @@
-"""Known-answer tests for the Threefry-2x32 cipher (ADVICE r4).
+"""Known-answer tests for the Threefry-2x32 cipher.
 
 Every integrator shares ops/rng.threefry2x32, so the image-parity tests
 cannot catch a cipher regression — they would all drift together.  These

@@ -78,122 +78,6 @@ def test_stats_segments_match_batch():
     assert int(stats_w["segments"]) == int(stats_b["segments"])
 
 
-@pytest.mark.slow
-def test_pallas_megakernel_matches_xla():
-    """Fused Pallas loop body (interpret mode on CPU) vs the XLA wavefront.
-
-    The XLA integrators mirror the kernel's expression structure
-    chain-for-chain (ops/intersect.py docstring), so the two paths are
-    BITWISE equal wherever no sky-gradient miss occurs (box_mirror: closed
-    room; depth_of_field/smallpt: black background).  Sky-scene lanes can
-    still differ by ~1 ulp: the sky chain's a_quad/rsqrt/lerp sits in
-    different fusion contexts in the two separately-compiled programs and
-    the fma grouping is the compiler's choice — measured 1-ulp on a few
-    percent of lanes on CPU, <=3e-10 full-depth scale-aware deviation on
-    TPU (TPU_SMOKE.md).  The on-device version of this gate is
-    scripts/tpu_smoke.py."""
-    from cpu_path_tracing_tpu.ops.wavefront import render_wavefront_pallas
-
-    cfg = pt.RenderConfig(width=16, height=12, spp=2, max_depth=16)
-    for name, bitwise in (("box_mirror", True), ("depth_of_field", True),
-                          ("smallpt", True), ("simple", False)):
-        scene = pt.get_scene(name, 16, 12)
-        ids = _cells(cfg)
-        ref = np.asarray(render_wavefront(scene, cfg, ids, 0, 2, lanes=8192))
-        pal = np.asarray(
-            render_wavefront_pallas(scene, cfg, ids, 0, 2, lanes=8192, rows=8, interpret=True)
-        )
-        if bitwise:
-            np.testing.assert_array_equal(pal, ref, err_msg=name)
-        else:
-            np.testing.assert_allclose(pal, ref, atol=1e-5, rtol=1e-5, err_msg=name)
-
-
-def test_persistent_megakernel_matches_per_step():
-    """Whole-loop persistent kernel (interpret mode) vs the per-step pallas
-    path and the XLA wavefront: per-item radiance depends only on
-    (cell, sample) via the item keys, so the persistent kernel must be
-    BITWISE equal to the per-step kernel regardless of pool width — and to
-    the XLA wavefront under the same caveats as
-    test_pallas_megakernel_matches_xla (sky-lane fma grouping)."""
-    from cpu_path_tracing_tpu.ops.wavefront import (
-        render_wavefront_pallas,
-        render_wavefront_pallas_persistent,
-    )
-
-    # Shapes sized for the fast tier (ADVICE r4: this parity case must stay
-    # in precommit; interpret-mode pallas cost ~ lanes x iters).
-    # One bitwise scene here; the sky-scene tolerance case and the other
-    # bitwise scenes stay in the slow tier (test_pallas_megakernel_matches_xla).
-    # K=4 throughout: the ring unroll dominates interpret-compile time and
-    # ring depth is schedule-only (test_persistent_rows_and_ring_invariance).
-    cfg = pt.RenderConfig(width=12, height=8, spp=1, max_depth=8)
-    for name, bitwise in (("box_mirror", True),):
-        scene = pt.get_scene(name, 12, 8)
-        ids = _cells(cfg)
-        ref = np.asarray(render_wavefront(scene, cfg, ids, 0, 1, lanes=1024,
-                                          ring_depth=4))
-        per = np.asarray(
-            render_wavefront_pallas(scene, cfg, ids, 0, 1, lanes=1024, rows=8,
-                                    ring_depth=4, interpret=True))
-        # unroll=1 for compile cost; unroll invariance is pinned in the
-        # slow tier (test_persistent_rows_and_ring_invariance).
-        new, st = render_wavefront_pallas_persistent(
-            scene, cfg, ids, 0, 1, rows=8, ring_depth=4, unroll=1,
-            interpret=True, with_stats=True)
-        new = np.asarray(new)
-        np.testing.assert_array_equal(new, per, err_msg=name)
-        if bitwise:
-            np.testing.assert_array_equal(new, ref, err_msg=name)
-        else:
-            np.testing.assert_allclose(new, ref, atol=1e-5, rtol=1e-5, err_msg=name)
-        assert int(st["segments"]) > 0 and int(st["iters"]) > 0
-
-
-@pytest.mark.slow
-def test_persistent_rows_and_ring_invariance():
-    """Pool height, ring depth AND loop unroll are schedule knobs, not
-    semantics (the unroll case additionally pins the every-2nd-bounce flush
-    cadence reproduction, megakernel.py body docstring)."""
-    from cpu_path_tracing_tpu.ops.wavefront import (
-        render_wavefront_pallas_persistent,
-    )
-
-    cfg = pt.RenderConfig(width=12, height=8, spp=2, max_depth=10)
-    scene = pt.get_scene("box", 12, 8)
-    ids = _cells(cfg)
-    ref = np.asarray(render_wavefront_pallas_persistent(
-        scene, cfg, ids, 0, 2, rows=8, unroll=1, interpret=True))
-    for rows, ring, unroll in ((16, 16, 1), (8, 4, 1), (8, 4, 2), (8, 8, 4)):
-        out = np.asarray(render_wavefront_pallas_persistent(
-            scene, cfg, ids, 0, 2, rows=rows, ring_depth=ring, unroll=unroll,
-            interpret=True))
-        np.testing.assert_array_equal(
-            out, ref, err_msg=f"rows={rows} K={ring} unroll={unroll}")
-
-
-def test_pallas_integrator_dispatch(monkeypatch):
-    """cfg.integrator='pallas' routes render_cells_range to the persistent
-    megakernel (and pallas_persistent=False to the per-step path).  Routing
-    only — numeric parity of those paths is covered by
-    test_persistent_megakernel_matches_per_step and the slow-tier/on-device
-    gates; executing interpret-mode pallas here cost ~20 s of fast tier."""
-    import cpu_path_tracing_tpu.render as render_mod
-    from cpu_path_tracing_tpu.ops import wavefront
-
-    cfg = pt.RenderConfig(width=8, height=6, spp=1, max_depth=8, integrator="pallas")
-    scene = pt.get_scene("box", 8, 6)
-    calls = []
-    monkeypatch.setattr(wavefront, "render_wavefront_pallas_persistent",
-                        lambda *a, **k: calls.append("persistent") or a[2])
-    monkeypatch.setattr(wavefront, "render_wavefront_pallas",
-                        lambda *a, **k: calls.append("per-step") or a[2])
-    render_mod.render_cells_range(scene, cfg, _cells(cfg), 0, 1)
-    render_mod.render_cells_range(scene, cfg.replace(pallas_persistent=False),
-                                  _cells(cfg), 0, 1)
-    assert calls == ["persistent", "per-step"]
-
-
 def test_noncontiguous_cells_rejected():
     """Wavefront paths raise on a non-contiguous concrete id set (the silent
     wrong-pixels hazard of the cell_ids[0]+offset regeneration contract)."""
@@ -232,10 +116,7 @@ def test_observability_stats():
 @pytest.mark.slow
 def test_deep_ring_and_config_ring():
     """Deep rings (stall-headroom for short-path scenes, config.py
-    wavefront_ring) keep exact parity, on the XLA wavefront and on the
-    interpret-mode pallas kernel."""
-    from cpu_path_tracing_tpu.ops.wavefront import render_wavefront_pallas
-
+    wavefront_ring) keep exact parity on the XLA wavefront."""
     cfg = pt.RenderConfig(width=8, height=6, spp=4, max_depth=32, wavefront_lanes=64)
     scene = pt.get_scene("simple", 8, 6)
     ref = _batch(scene, cfg, 4)
@@ -246,13 +127,3 @@ def test_deep_ring_and_config_ring():
     cfg_k = cfg.replace(wavefront_ring=32)
     w = np.asarray(render_wavefront(scene, cfg_k, _cells(cfg), 0, 4))
     np.testing.assert_allclose(w, ref, atol=1e-6, rtol=1e-6)
-    # pallas kernel, interpret mode, deep ring
-    scene32 = pt.get_scene("simple", 8, 6, dtype=jnp.float32)
-    cfg_p = pt.RenderConfig(width=8, height=6, spp=4, max_depth=32,
-                            wavefront_lanes=8192, wavefront_ring=32)
-    ref32 = np.asarray(
-        render_cells_range(scene32, cfg_p.replace(integrator="batch"),
-                           _cells(cfg_p), 0, 2).astype(np.float32))
-    w32 = np.asarray(render_wavefront_pallas(scene32, cfg_p, _cells(cfg_p), 0, 2,
-                                             rows=8, interpret=True))
-    np.testing.assert_allclose(w32, ref32, atol=1e-5, rtol=1e-5)
